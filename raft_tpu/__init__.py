@@ -1,9 +1,9 @@
-"""raft_tpu — TPU-native repeat-aware read fragmentation framework.
+"""raft_tpu — repeat-aware read fragmentation on an accelerator.
 
 A from-scratch rebuild of the capabilities of at-cg/RAFT (reference at
-``/root/reference``) designed TPU-first: columnar host I/O (C++), batched
-``[B, W]`` device tensors, JAX/Pallas kernels for coverage pileup and
-repeat scanning, and ``shard_map`` data parallelism over reads.
+``/root/reference``): columnar host I/O (C++), batched ``[B, W]`` device
+tensors, JAX/XLA stages for coverage pileup, repeat scanning and
+chopping, and ``shard_map`` data parallelism over reads.
 """
 
 from raft_tpu.params import AlgoParams

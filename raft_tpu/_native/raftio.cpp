@@ -1,7 +1,7 @@
 // raft_tpu native host I/O: streaming gz FASTA/FASTQ + PAF parsing and
 // output emission.
 //
-// TPU-native equivalent of the reference's native I/O layer (kseq.h /
+// The rebuild's equivalent of the reference's native I/O layer (kseq.h /
 // paf.hpp / the ofstream emit loops in chop.hpp:318 and repeat.hpp:105) —
 // re-implemented from scratch as a columnar parser: instead of per-record
 // heap objects it produces contiguous blobs + int64 offsets and int32
@@ -140,8 +140,8 @@ struct Interner {
   // warm the probe slot for a hash about to be interned: at millions of
   // distinct names the probe arrays are 100+ MB and every lookup is a
   // cache miss — batching hash computation and prefetching ~20 slots
-  // ahead overlaps those misses (measured on the 4M-read / 139M-row
-  // preparse, SCALE_r05 many_small_reads hotspot)
+  // ahead overlaps those misses (the many-short-reads corner: 4M
+  // reads / 139M PAF rows)
   inline void prefetch(uint64_t h) const {
     if (mask) __builtin_prefetch(&hashes[h & mask]);
   }
@@ -1195,7 +1195,7 @@ RaftFasta* raftio_index_fastx(const char* path) {
     // way the disk write overlaps the inflate) and index the MAPPED
     // temp file. Replaces inflate-everything-into-RAM + write-back:
     // at 12.4 GB that was a full-input RAM spike plus the inflate and
-    // the write in sequence (SCALE_r05 gz section).
+    // the write in sequence.
     if (!stream_decomp_to_temp(path, m.p, m.n, &decomp)) return nullptr;
     if (!map_file(decomp.c_str(), &dm) || !dm.n) {
       unlink(decomp.c_str());
@@ -1529,8 +1529,7 @@ void preparse_paf_region(const char* p, size_t n, size_t lo, size_t hi,
   // row's probe slots, then intern with the precomputed hashes. At
   // millions of distinct names the interner's probe arrays dwarf the
   // caches and the un-batched loop stalled on one dependent miss per
-  // lookup; batching overlaps ~2*BATCH misses (measured 86 s -> see
-  // SCALE_r05 many_small_reads for the 139M-row corner).
+  // lookup; batching overlaps ~2*BATCH misses.
   constexpr int BATCH = 24;
   struct RowBuf {
     PafRowS r;
@@ -1812,7 +1811,7 @@ RaftGroupedEv* raftio_group_events(
   int64_t* cnt = g->off.data() + 1;  // counts accumulate at off[1..n]
   // counting-sort passes touch cnt/cur at RANDOM read ids: at millions
   // of reads those arrays miss on every access — prefetch 16 rows
-  // ahead (same fix as the interner probes, SCALE_r05 hotspot)
+  // ahead (same fix as the interner probes)
   constexpr int64_t PD = 16;
   for (int64_t r = 0; r < n_rows; r++) {
     if (r + PD < n_rows) {
@@ -2520,8 +2519,8 @@ bool bgzf_write(int fd, const char* data, size_t n, int T) {
 
 // Two-digit-LUT integer formatter shared by the render writers: the
 // coverage files alone are ~2 GB of "start,cov " pairs at 512k scale,
-// so halving the div/mod chain cuts the emit render term (VERDICT r4
-// item 5). Returns the digit count written at d (no sign handling).
+// so halving the div/mod chain cuts the emit render term. Returns the
+// digit count written at d (no sign handling).
 static const char kDigits2[201] =
     "0001020304050607080910111213141516171819202122232425262728293031323334353637383940414243444546474849"
     "5051525354555657585960616263646566676869707172737475767778798081828384858687888990919293949596979899";
@@ -2624,7 +2623,7 @@ class BufWriter {
 // its own MemWriter, then the shards are written to the file in order
 // (bytes identical to a single-threaded render; the formatting, which
 // dominates emit cost, runs on all cores). Same memcpy/raw-index inner
-// loops as BufWriter — per-byte push_back was measured 10x slower.
+// loops as BufWriter (per-byte push_back is far slower).
 class MemWriter {
  public:
   MemWriter() : n_(0) {}
@@ -2769,10 +2768,9 @@ class PWriter {
 // CONCURRENTLY (one Python thread per file), so each file gets half the
 // machine. The parallel emitters are zero-copy single-pass (CountWriter
 // pre-pass + disjoint pwritev ranges) so shards contend only on memory
-// bandwidth; measured on a 2-vCPU host one shard already saturates the
-// kernel copy (parallel = 0.305 s vs serial 0.274 s on the 754 MB
-// fragment file), so small machines stay serial and the parallel path
-// engages at >= 4 cores.
+// bandwidth; on a 2-core host one shard already saturates the kernel
+// copy, so small machines stay serial and the parallel path engages at
+// >= 4 cores.
 // explicit RAFT_EMIT_SHARDS (0 = unset → auto)
 int emit_shards_explicit() {
   const char* env = getenv("RAFT_EMIT_SHARDS");
@@ -2813,7 +2811,7 @@ int emit_sharded(const char* path, int64_t n_items, int append,
     // flush BEFORE deciding the return code: the destructor's flush is
     // too late to report ENOSPC/EIO, and a silently truncated output
     // with rc=0 is the worst possible failure (found by an actual
-    // disk-full event during the r4 512k runs)
+    // disk-full event during a 512k-read run)
     w.flush();
     return w.ok() ? 0 : -1;
   }
@@ -2986,8 +2984,7 @@ extern "C" {
 // bgzip-equivalent utility: BGZF-compress a whole file block-parallel
 // (RAFT_GZ_LEVEL honored). Exists so BGZF test/bench inputs need no
 // external bgzip binary, and as the user-facing recompression route for
-// plain-gz inputs (whose single-stream inflate is the serial floor the
-// SCALE_r05 gz section measures).
+// plain-gz inputs (whose single-stream inflate is a serial floor).
 int raftio_bgzf_file(const char* in_path, const char* out_path) {
   Mapped m;
   if (!map_file(in_path, &m) || !m.n) return -1;

@@ -13,7 +13,7 @@ default compat mode (SURVEY.md §5 "Config/flag system"):
 * integer flags use C ``atoi`` (leading digits, 0 on garbage); ``-m`` uses
   ``std::stod``.
 
-Extra (new, TPU-rebuild-only) long options — ``--engine {jax,oracle}``,
+Extra (rebuild-only) long options — ``--engine {jax,oracle}``,
 ``--no-strict``, ``--pure-python-io``, ``--profile``, … — are recognized
 and stripped anywhere in argv (a pre-pass removes them before the
 getopt-compatible scan), so they may be freely interleaved with the
@@ -104,7 +104,7 @@ def parse_args(argv: list[str], compat_getopt: bool = True):
     """Parse reference-surface args; returns (params, reads, paf, extras)."""
     params = AlgoParams()
     extras = {"engine": "jax", "strict": True, "use_native": None,
-              "profile": False, "pallas": None, "stats_json": None,
+              "profile": False, "stats_json": None,
               "chunk_reads": None, "devices": None, "spill_paf": None,
               "gz_out": False, "cov_out": None, "trace": None,
               "auto_e": False}
@@ -130,10 +130,6 @@ def parse_args(argv: list[str], compat_getopt: bool = True):
             extras["use_native"] = False
         elif a == "--profile":
             extras["profile"] = True
-        elif a == "--pallas":
-            extras["pallas"] = True
-        elif a == "--no-pallas":
-            extras["pallas"] = False
         elif a == "--stats-json":
             extras["stats_json"] = argv[i + 1]
             skip = True
@@ -172,9 +168,6 @@ def parse_args(argv: list[str], compat_getopt: bool = True):
             print(
                 "\nraft_tpu extensions (not part of the reference surface):\n"
                 "  --engine {jax,oracle}   compute engine (default jax)\n"
-                "  --pallas / --no-pallas  force the Pallas MXU pileup\n"
-                "                          kernel on/off (default: per-\n"
-                "                          bucket auto policy on TPU)\n"
                 "  --auto-e                estimate est_cov (-e) from the\n"
                 "                          data (median per-window pileup\n"
                 "                          coverage + safety bias; see\n"
@@ -297,7 +290,7 @@ def main(argv: list[str] | None = None) -> int:
                                  engine=extras["engine"],
                                  strict=extras["strict"],
                                  use_native=extras["use_native"],
-                                 use_pallas=extras["pallas"], mesh=mesh,
+                                 mesh=mesh,
                                  chunk_reads=extras["chunk_reads"],
                                  spill_paf=extras["spill_paf"],
                                  gz_out=extras["gz_out"],

@@ -5,7 +5,8 @@ and output emission at memory bandwidth — the reference's wall time is
 dominated by parse+emit (SURVEY.md §6 Amdahl note), so this is the
 critical host component. Built on demand with the toolchain in the image;
 if the build fails every entry point returns ``None`` and callers fall
-back to the pure-Python parsers (same semantics, slower).
+back to the pure-Python parsers (same semantics, slower), after one
+stderr line that names the ``make`` or load error.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ _build_failed = False
 
 
 def _get_lib():
-    global _lib, _build_failed
+    global _lib
     if _lib is not None or _build_failed:
         return _lib
     with _lock:
@@ -34,19 +35,33 @@ def _get_lib():
         src = os.path.join(_DIR, "raftio.cpp")
         if (not os.path.exists(_SO)
                 or os.path.getmtime(_SO) < os.path.getmtime(src)):
-            res = subprocess.run(["make", "-C", _DIR, "-s"],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                _build_failed = True
+            try:
+                res = subprocess.run(["make", "-C", _DIR, "-s"],
+                                     capture_output=True, text=True)
+                err = res.stderr.strip() if res.returncode else None
+            except OSError as e:  # no make on PATH
+                err = str(e)
+            if err is not None:
+                _fallback(f"build failed: {err}")
                 return None
         try:
             lib = C.CDLL(_SO)
-        except OSError:
-            _build_failed = True
+        except OSError as e:
+            _fallback(f"load failed: {e}")
             return None
         _configure(lib)
         _lib = lib
         return _lib
+
+
+def _fallback(why: str) -> None:
+    """Record that the native library is unusable and say so once on
+    stderr: the pure-Python parsers give the same bytes, much slower."""
+    global _build_failed
+    _build_failed = True
+    import sys
+    print(f"raft: native I/O library unavailable ({why}); using the "
+          "pure-Python parsers", file=sys.stderr)
 
 
 def _configure(lib):

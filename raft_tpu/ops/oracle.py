@@ -7,7 +7,7 @@ contract in SURVEY.md §2/§3) of:
 * ``repeat_annotate``  (/root/reference/repeat.hpp:81-204, per-read scan)
 * ``break_reads``      (/root/reference/chop.hpp:193-324, marker logic)
 
-They serve as (a) the unit-test oracle for the JAX/Pallas device kernels
+They serve as (a) the unit-test oracle for the JAX device stages
 and (b) the reference engine for byte-parity testing of the CLI. They are
 NOT a spill path — the device engine's slot counts (K/M/F) are closed-form
 bounds no input can exceed (see ``engine_jax.derive_cfg`` and

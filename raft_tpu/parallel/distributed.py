@@ -89,9 +89,14 @@ def run_distributed(read_path: str, paf_path: str, params,
                     coordinator: str | None = None,
                     num_processes: int | None = None,
                     process_id: int | None = None,
-                    strict: bool = True) -> None:
+                    strict: bool = True,
+                    local_device_ids: list[int] | None = None) -> None:
     """Multi-host pipeline. Call once per host (e.g. under SLURM/GKE);
     jax.distributed picks up cluster env vars when args are None.
+
+    ``local_device_ids`` pins this process to those local devices (for
+    several processes on one machine, one card each: without it every
+    process opens — and reserves memory on — all of the machine's cards).
 
     Byte-range ingest: every host runs the cheap names-only index pass
     (global first-seen interning must agree across hosts), then parses
@@ -116,7 +121,8 @@ def run_distributed(read_path: str, paf_path: str, params,
 
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
     H = jax.process_count()
     h = jax.process_index()
 

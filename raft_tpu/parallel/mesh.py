@@ -4,9 +4,10 @@ The problem's only parallel axis is reads (SURVEY.md §2 "Parallelism
 strategies"): reads shard round-robin-free — as contiguous row ranges of
 each dense bucket — across a 1-D device mesh. Overlap events are routed to
 their owner read's shard ON THE HOST (each event touches exactly one
-read's coverage), so the hot path needs NO device collectives; only the
-global statistics use ``psum`` (the reference's global stat accumulators,
-``repeat.hpp:93-97``, become a replicated psum output).
+read's coverage), so the device step needs NO collectives: every shard
+runs independently, and the global statistics (the reference's global
+accumulators, ``repeat.hpp:93-97``) are summed on the host from the
+per-read columns, as on one device.
 
 Multi-host would extend this with ``jax.distributed`` + the same
 contiguous-range ownership; per-host output shards concatenate in read-id
@@ -22,11 +23,10 @@ import functools
 import numpy as np
 
 import jax
-import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from raft_tpu import bucketing
-from raft_tpu.engine_jax import StaticCfg, device_step_impl, rep_len_sum_col
+from raft_tpu.engine_jax import StaticCfg, device_step_impl
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "r",
@@ -86,6 +86,13 @@ def shard_bucket(bk: bucketing.Bucket, n_shards: int) -> bucketing.Bucket:
         n_used=bk.n_used)
 
 
+def stage_sharded(mesh: Mesh, x: np.ndarray) -> jax.Array:
+    """H2D-stage a host array split along its leading axis over the mesh:
+    each device receives only its own shard, straight from the host (no
+    staging of the whole bucket on the first device)."""
+    return jax.device_put(x, NamedSharding(mesh, P(mesh.axis_names[0])))
+
+
 def sharded_device_step(mesh: Mesh):
     """Wrap the device pipeline in shard_map over the read axis.
 
@@ -98,15 +105,10 @@ def sharded_device_step(mesh: Mesh):
     @functools.partial(jax.jit, static_argnames=("cfg",))
     def step(lens, ev_off, ev_pk, *, cfg: StaticCfg):
         def local(l, eo, epk):
-            out = device_step_impl(l, eo, epk, cfg)
-            # global stats ride a psum collective (ICI), matching the
-            # reference's global accumulators (repeat.hpp:93-97)
-            out["global_rep_len"] = jax.lax.psum(
-                jnp.sum(out["packed"][:, rep_len_sum_col(cfg)]), axis)
-            return out
+            return device_step_impl(l, eo, epk, cfg)
 
         specs_in = (P(axis), P(axis), P(axis))
-        out_specs = {"packed": P(axis), "global_rep_len": P()}
+        out_specs = {"packed": P(axis)}
         if cfg.cov_out in ("diff8", "cov"):
             out_specs[cfg.cov_out] = P(axis)
         return jax.shard_map(local, mesh=mesh, in_specs=specs_in,

@@ -1,4 +1,4 @@
-"""Algorithm parameters for the RAFT-TPU pipeline.
+"""Algorithm parameters for the RAFT pipeline.
 
 Mirrors the reference parameter block (``/root/reference/param.hpp:4-44``)
 including all defaults. The dataclass is frozen and hashable so it can be

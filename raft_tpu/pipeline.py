@@ -4,7 +4,7 @@
 Stages: load reads → load overlaps → coverage pileup → repeat annotation →
 chop → emit. The compute stages run on one of two engines:
 
-* ``jax``   — the TPU-native device pipeline (bucketed ``[B, W]`` tensors,
+* ``jax``   — the device pipeline (bucketed ``[B, W]`` tensors,
               see ``raft_tpu/engine_jax.py``); the default.
 * ``oracle``— per-read numpy with reference-exact scalar semantics
               (``raft_tpu/ops/oracle.py``); used for testing. There is
@@ -71,8 +71,8 @@ class RunStats:
             "symmetric_overlaps": self.symmetric,
             "stage_seconds": dict(self.stage_seconds),
             "peak_rss_mb": self.peak_rss_mb,
-            # emit throughput telemetry (VERDICT r2 weak 7): lets a future
-            # round tell an emit-policy regression from VM CPU steal
+            # emit throughput telemetry: tells an emit-policy regression
+            # from host CPU contention
             "emit_bytes": self.emit_bytes,
             "emit_mb_per_s": round(
                 self.emit_bytes / 1e6 / self.stage_seconds["emit"], 1)
@@ -137,11 +137,11 @@ def _est_cov_hint(stats: "RunStats", params: AlgoParams) -> None:
     if not stats.total_windows or params.est_cov <= 0:
         return
     ratio = stats.coverage_per_window / params.est_cov
-    # Thresholds calibrated to the r4 sweep (EVAL.md, VERDICT r4 item
-    # 6): a 0.75x under-estimate (observed/supplied ~= 1.33) ALREADY
-    # halves flank-tolerant precision (0.995 -> 0.40 at 2 Mbp, 0.11 at
-    # 10 Mbp), so the under-estimate hint must fire before 1.33, not at
-    # the old 1.5. Over-estimates are harmless at 1.5x (ratio 0.67) and
+    # Thresholds calibrated to the r4 sweep (EVAL.md): a 0.75x
+    # under-estimate (observed/supplied ~= 1.33) ALREADY halves
+    # flank-tolerant precision (0.995 -> 0.40 at 2 Mbp, 0.11 at 10 Mbp),
+    # so the under-estimate hint must fire before 1.33, not at the old
+    # 1.5. Over-estimates are harmless at 1.5x (ratio 0.67) and
     # cost recall at 2x (ratio 0.5, recall 0.82-0.98), so warn from
     # ratio < 0.6 — between the last-known-safe and first-damaged
     # points.
@@ -225,17 +225,15 @@ def compute_oracle(store: ReadStore, table: OverlapTable,
     return coverages, repeats_per_read, frags_per_read, stats
 
 
-DEFAULT_CHUNK_READS = 32768  # chunk size auto-streaming picks (the 512k
-#                              scale proof's measured-good size)
+DEFAULT_CHUNK_READS = 32768  # chunk size auto-streaming picks
 
 
 def _auto_chunk_reads(read_path: str, paf_path: str) -> int:
     """Auto-streaming gate for whole-file invocations (0 = stay
     whole-file). Size-based: the decision must happen before any parse,
     and input bytes are the resource the chunked schedule manages. The
-    2 GB default keeps bench-scale runs (where chunking measured slightly
-    slower — smaller batches cost more than the overlap saves) on the
-    whole-file path."""
+    2 GB default keeps small runs (where smaller batches can cost more
+    than the overlap saves) on the whole-file path."""
     try:
         thr = float(os.environ.get("RAFT_AUTO_CHUNK_BYTES", 2e9))
     except ValueError:
@@ -257,7 +255,7 @@ def _auto_chunk_reads(read_path: str, paf_path: str) -> int:
 def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
                  engine: str = "jax", strict: bool = True,
                  verbose: bool = True, use_native: bool | None = None,
-                 use_pallas: bool | None = None, mesh=None,
+                 mesh=None,
                  chunk_reads: int | None = None,
                  spill_paf: bool | None = None,
                  gz_out: bool = False,
@@ -287,13 +285,11 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
 
     ``chunk_reads=None`` (the default) auto-streams at scale: inputs over
     ``RAFT_AUTO_CHUNK_BYTES`` (default 2 GB, 0 disables) switch to the
-    chunked schedule with the default chunk size. Measured at 512k reads
-    / 12.4 GB (SCALE_r03.json): whole-file 1839.8 s vs chunked 600.4 s
-    with byte-identical outputs — the whole-file schedule serializes
-    bucket routing, H2D, exec+D2H and emit into barriers, while the
-    chunked schedule overlaps them across chunks and rides the link's
-    transfer floor. Pass ``chunk_reads=0`` (CLI ``--chunk-reads 0``) to
-    force whole-file.
+    chunked schedule with the default chunk size (byte-identical outputs):
+    the whole-file schedule serializes bucket routing, H2D, exec+D2H and
+    emit into barriers, while the chunked schedule overlaps them across
+    chunks and bounds memory. Pass ``chunk_reads=0`` (CLI
+    ``--chunk-reads 0``) to force whole-file.
     """
     if chunk_reads is None and engine == "jax" and use_native is not False:
         # the chunked schedule always runs the jax engine + native I/O;
@@ -308,7 +304,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     if chunk_reads:
         st = _run_pipeline_chunked(read_path, paf_path, params,
                                    chunk_reads, strict=strict,
-                                   verbose=verbose, use_pallas=use_pallas,
+                                   verbose=verbose,
                                    mesh=mesh, spill_paf=spill_paf,
                                    gz_out=gz_out, cov_out=cov_out,
                                    auto_e=auto_e)
@@ -327,11 +323,6 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
     _validate_inputs(read_path, paf_path)
     stats = RunStats()
 
-    if engine == "jax":
-        # overlap per-process executable program loads with load_reads
-        from raft_tpu.engine_jax import warm_shapes_async
-        warm_shapes_async()
-
     import concurrent.futures as cf
 
     # the PAF tokenize/intern phase has no dependency on the FASTA parse
@@ -345,9 +336,9 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
         _pre_pool.shutdown(wait=False)
 
     def _drain_preparse():
-        # same guard as the chunked path (ADVICE r4 item 3): an
-        # exception before resolve must not leave the non-daemon
-        # preparse worker running or leak its C handle
+        # same guard as the chunked path: an exception before resolve
+        # must not leave the non-daemon preparse worker running or leak
+        # its C handle
         nonlocal pre_fut
         if pre_fut is None:
             return
@@ -418,7 +409,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
         elif engine == "jax":
             from raft_tpu.engine_jax import compute_jax
             res = compute_jax(store, table, params, strict=strict,
-                              use_pallas=use_pallas, mesh=mesh,
+                              mesh=mesh,
                               cov_out=cov_out, on_cov_events=_on_cov,
                               grouped=grouped_for_engine)
         else:
@@ -471,8 +462,7 @@ def run_pipeline(read_path: str, paf_path: str, params: AlgoParams,
 
 def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
                           chunk_reads: int, strict: bool = True,
-                          verbose: bool = True, use_pallas: bool | None = None,
-                          mesh=None,
+                          verbose: bool = True, mesh=None,
                           spill_paf: bool | None = None,
                           gz_out: bool = False,
                           cov_out: str | None = None,
@@ -500,20 +490,15 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
     _validate_inputs(read_path, paf_path)
     stats = RunStats()
 
-    # overlap the once-per-process executable program loads with the
-    # disk-bound index scan below (no-op off-TPU / on first-ever run)
-    from raft_tpu.engine_jax import warm_shapes_async
-    warm_shapes_async()
-
     if spill_paf is None:
         # Auto policy, RAM-aware: spilling exists to bound overlap-column
         # memory (~24 B/row resident without it), but it costs a second
-        # disk pass (~25 s of the 512k benchmark when it fires
-        # needlessly). Spill only when the PAF is both large in absolute
-        # terms (> 2 GiB) AND large relative to this host's RAM (> 15% —
-        # columns resident are ~1/4 of the text size, so 15% of RAM in
-        # text is ~4% in columns: comfortably safe to keep resident
-        # below that). --spill-paf / --no-spill-paf always win.
+        # disk pass when it fires needlessly. Spill only when the PAF is
+        # both large in absolute terms (> 2 GiB) AND large relative to
+        # this host's RAM (> 15% — columns resident are ~1/4 of the text
+        # size, so 15% of RAM in text is ~4% in columns: comfortably safe
+        # to keep resident below that). --spill-paf / --no-spill-paf
+        # always win.
         paf_bytes = os.path.getsize(paf_path)
         try:
             ram = (os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
@@ -525,9 +510,9 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
     # two-phase split the whole-file path uses): preparse runs
     # CONCURRENTLY with the FASTA index scan — both native calls release
     # the GIL — then a cheap resolve against the index's global name map.
-    # At 512k scale this overlap removes ~60 s of serial PAF parse from
-    # the wall (VERDICT r3 item 1). The spill path can't use it (the
-    # native binner does its own two-pass read), so preparse is gated.
+    # This overlap takes the serial PAF parse off the critical path.
+    # The spill path can't use it (the native binner does its own
+    # two-pass read), so preparse is gated.
     import concurrent.futures as cf
     pre_fut = None
     if not spill_paf:
@@ -537,9 +522,9 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
 
     def _drain_preparse():
         # join + free the preparse worker on EVERY exit that did not
-        # consume it (ADVICE r4 item 3): otherwise an index/resolve
-        # error leaves the non-daemon worker tokenizing for ~10+ s at
-        # 512k scale after the exception, and leaks the C handle.
+        # consume it: otherwise an index/resolve error leaves the
+        # non-daemon worker tokenizing on after the exception, and leaks
+        # the C handle.
         nonlocal pre_fut
         if pre_fut is None:
             return
@@ -604,11 +589,10 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
     if bins is None:
         # Whole-input grouped events in ONE native counting-sort pass
         # (window-binned, read-grouped) using the lens the index scan
-        # recorded: replaces events() + argsort + per-chunk searchsorted
-        # — measured ~42 s of untimed numpy at 512k scale (r4). Runs
-        # before the high_cov print because --auto-e derives est_cov
-        # (hence high_cov) from these events; stdout line ORDER is
-        # unchanged either way.
+        # recorded: replaces events() + argsort + per-chunk searchsorted.
+        # Runs before the high_cov print because --auto-e derives
+        # est_cov (hence high_cov) from these events; stdout line ORDER
+        # is unchanged either way.
         idx_lens = idx.get("lens")
         with _Timer(stats, "group_events"):
             if idx_lens is not None and len(idx_lens) == n:
@@ -679,11 +663,11 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
     rec_off = idx["rec_off"]
     names = idx["names"]
 
-    # Per-chunk stage attribution (VERDICT r3 item 1): RAFT_CHUNK_TRACE=
-    # <path> writes one JSON line per chunk with thread-level busy times
-    # and wall spans, so tools/bench_chunk.py can account the schedule
-    # (what blocked the main loop, what each worker thread actually did,
-    # and where the wall went at 512k scale). Off by default: the only
+    # Per-chunk stage attribution: RAFT_CHUNK_TRACE=<path> writes one
+    # JSON line per chunk with thread-level busy times and wall spans, so
+    # tools/bench_chunk.py can account the schedule (what blocked the
+    # main loop, what each worker thread actually did, and where the
+    # wall went). Off by default: the only
     # per-chunk cost when enabled is a few perf_counter() calls.
     trace_path = os.environ.get("RAFT_CHUNK_TRACE")
     trace: list | None = [] if trace_path else None
@@ -760,8 +744,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
             t_drain = time.perf_counter()
             # bound resident chunks: current + prefetched + RAFT_CHUNK_PENDING
             # still-emitting (default 2 ≈ one extra chunk store resident, so
-            # a transient emit lag no longer blocks the main loop — measured
-            # 25 s of drain stalls at 512k with the old bound of 1)
+            # a transient emit lag does not block the main loop)
             max_pending = max(1, int(os.environ.get("RAFT_CHUNK_PENDING", "2")))
             while len(pending) > max_pending:
                 for f in pending.popleft():
@@ -790,7 +773,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
             t_comp = time.perf_counter()
             with _Timer(stats, "compute"):
                 res = compute_jax(store, sub_table, params, strict=strict,
-                                  use_pallas=use_pallas, mesh=mesh,
+                                  mesh=mesh,
                                   cov_out=cov_out, on_cov_events=_on_cov,
                                   timers_out=eng_timers if rec is not None
                                   else None)
@@ -858,7 +841,7 @@ def _run_pipeline_chunked(read_path: str, paf_path: str, params: AlgoParams,
         # tear the worker pools down WITHOUT waiting on queued work,
         # release the spill files, and name the partial outputs — a
         # crashed streaming run must not leave the user guessing which
-        # append-mode files hold truncated data (VERDICT r4 item 4).
+        # append-mode files hold truncated data.
         for p in emit_pools + [cov_pool, load_pool]:
             p.shutdown(wait=False, cancel_futures=True)
         if bins is not None:

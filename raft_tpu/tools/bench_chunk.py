@@ -1,9 +1,8 @@
-"""Chunked-schedule wall decomposition at scale (VERDICT r3 item 1).
+"""Chunked-schedule wall decomposition at scale.
 
-The 512k-read scale proof left a ~185 s "compute" stage undecomposed —
-suspiciously equal to the VM's disk floor. This tool answers where the
-wall actually goes: it runs the production CLI on the given inputs with
-the per-chunk tracer enabled (``RAFT_CHUNK_TRACE``), measures this
+This tool answers where the wall of a chunked (streaming) run goes: it
+runs the production CLI on the given inputs with the per-chunk tracer
+enabled (``RAFT_CHUNK_TRACE``), measures this
 machine's sequential disk bandwidth directly (cold page cache), and
 prints a stage accounting that attributes the wall to
 
@@ -15,8 +14,7 @@ prints a stage accounting that attributes the wall to
 * main-thread blocked time (waiting for loads / draining emits),
 
 plus a disk-floor model from the measured bandwidth and actual bytes
-moved. One JSON document on stdout; see SCALE_r04.json / BENCHMARKS.md
-for recorded results.
+moved. One JSON document on stdout.
 
 Usage::
 
@@ -25,7 +23,7 @@ Usage::
 
 ``--cold`` drops the page cache (root) before the pipeline run so disk
 reads are real; ``--disk-bw`` measures sequential read/write bandwidth
-first. TPU note: sequential with anything else touching the TPU.
+first.
 """
 
 from __future__ import annotations

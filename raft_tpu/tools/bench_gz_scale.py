@@ -1,4 +1,4 @@
-"""gz-input scale proof (VERDICT r4 item 2 / SCALE_r05 gz section).
+"""gz-input scale proof.
 
 The reference's contract is gz-everywhere (``kseq.h`` over ``gzFile``,
 ``/root/reference/paf.hpp:7``) and real HiFi inputs ship gzipped, but
@@ -24,8 +24,7 @@ Usage::
         --paf   /root/bigbench/scale524288.overlaps.paf \
         --dir /root/bigbench/gzscale [--cold] [--with-reference]
 
-TPU note: sequential TPU runs; never run concurrently with anything
-else touching the TPU.
+Runs are sequential: one device process at a time.
 """
 
 from __future__ import annotations

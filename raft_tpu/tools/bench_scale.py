@@ -1,4 +1,4 @@
-"""Beyond-toy-scale proof runner (VERDICT r2 item 1).
+"""Beyond-toy-scale proof runner.
 
 The reference's real operating point is tens-of-GB inputs
 (`/root/reference/README.md:44`: 32x ONT human, ~100 GB RAM); the
@@ -28,8 +28,7 @@ Usage::
         [--rows-per-read 60] [--dir /root/bigbench] [--chunk 32768]
         [--with-reference] [--keep-outputs]
 
-TPU note: runs are sequential; never run this concurrently with
-anything else touching the TPU.
+Runs are sequential: one device process at a time.
 """
 
 from __future__ import annotations

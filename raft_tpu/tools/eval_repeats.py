@@ -322,7 +322,7 @@ def run_sweep(workdir: str, genome_size: int = 2_000_000,
               scales=SWEEP_SCALES, engine: str = "jax",
               repeat_fams: int = 3, repeat_len: int = 15000,
               copies: int = 4, verbose: bool = True) -> list[dict]:
-    """est_cov sensitivity sweep (VERDICT r3 item 4): one simulation per
+    """est_cov sensitivity sweep: one simulation per
     seed, evaluated at each ``-e`` mis-specification scale. The inputs are
     parsed once per seed; only the parameter point changes."""
     from raft_tpu.tools.simulate import write_simulation
@@ -365,7 +365,7 @@ def run_noise_sweep(workdir: str, genome_size: int = 2_000_000,
                     coverage: float = 30.0, seeds=(11, 23),
                     points=NOISE_POINTS, engine: str = "jax",
                     verbose: bool = True) -> list[dict]:
-    """Overlap-noise robustness sweep (VERDICT r4 item 7): real PAFs
+    """Overlap-noise robustness sweep: real PAFs
     are not the derived-from-truth ideal — they drop true overlaps, add
     spurious ones, and jitter coordinates. One clean point + every
     NOISE_POINTS per seed, -e at truth."""

@@ -76,7 +76,7 @@ def write_simulation(out_prefix: str, genome_size: int = 2_000_000,
                      spurious_rate: float = 0.0,
                      jitter_sd: float = 0.0):
     """``drop_rate``/``spurious_rate``/``jitter_sd`` inject OVERLAP NOISE
-    (VERDICT r4 item 7): real PAFs (hifiasm --dbg-ovec, minimap2 ava)
+    as real PAFs (hifiasm --dbg-ovec, minimap2 ava) carry it:
     drop true overlaps, add spurious pairs, and jitter endpoints —
     EVAL's derived-from-truth PAF is the ideal-input upper bound.
 

@@ -1,4 +1,4 @@
-"""--auto-e self-estimated coverage (VERDICT r4 item 1).
+"""--auto-e self-estimated coverage.
 
 The estimator reads est_cov off the per-window pileup distribution
 (median of nonzero coverage, fixed-point tail exclusion, x1.15 upward

@@ -3,7 +3,10 @@ int8 diff-transfer overflow fallback."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import pytest
 
 from raft_tpu.engine_jax import compute_jax
 from raft_tpu.io.fasta import ReadStore
@@ -158,3 +161,40 @@ def test_ultralong_reads_end_to_end():
     want = from_per_read_lists(4, cov, reps, frags, st)
     _assert_equal(res, want)
     assert res.total_read_length == sum(lens)
+
+
+_CACHE_PROBE = """
+import os, sys, jax, jax.numpy as jnp
+from raft_tpu import engine_jax
+jax.jit(lambda x: x * {k} + 1)(jnp.arange(7)).block_until_ready()
+print(jax.config.jax_compilation_cache_dir)
+"""
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_placement(tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR, when set, is where the cache lands (and
+    no directory is set over it in code); unset, the cache lands in the
+    one fixed directory inside the checkout."""
+    import subprocess
+    import sys
+    import uuid
+    from raft_tpu.engine_jax import DEFAULT_CACHE_DIR
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert DEFAULT_CACHE_DIR == os.path.join(root, ".jax_cache")
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = root
+    want = str(tmp_path / "cache") if env_set else DEFAULT_CACHE_DIR
+    if env_set:
+        env["JAX_COMPILATION_CACHE_DIR"] = want
+    before = set(os.listdir(want)) if os.path.isdir(want) else set()
+    k = uuid.uuid4().int % 100003 + 2  # a fresh executable, a new entry
+    res = subprocess.run([sys.executable, "-c", _CACHE_PROBE.format(k=k)],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().splitlines()[-1] == want
+    assert set(os.listdir(want)) - before, "no cache entry written"

@@ -1,4 +1,4 @@
-"""Fault-injection audit of EVERY native emitter (VERDICT r4 item 4).
+"""Fault-injection audit of EVERY native emitter.
 
 Round 4's real disk-full event exposed an rc-decided-before-final-flush
 bug in ONE writer path; this matrix pins the whole surface: all five
@@ -124,7 +124,7 @@ def test_chunked_mid_emit_failure_tears_down(tmp_path, monkeypatch,
                                              capsys):
     """A mid-run emit failure in the streaming pipeline must raise,
     shut the worker pools down promptly, and name the partial outputs
-    on stderr (VERDICT r4 item 4, second half)."""
+    on stderr."""
     import time
 
     from raft_tpu import emit

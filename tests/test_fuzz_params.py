@@ -1,4 +1,4 @@
-"""Param-space differential fuzzing (VERDICT r3 item 5).
+"""Param-space differential fuzzing.
 
 ``test_fuzz_parity`` randomizes *inputs* under mostly-default params; round
 3's ``-v > -p`` reference-crash find showed the parameter axis pays too.

@@ -33,25 +33,89 @@ def rand_case(rng, n_reads=16, max_len=8000, reso=50, max_ev_per_read=30):
     return lens, ev_read, ev_lo, ev_hi
 
 
-@pytest.mark.parametrize("seed", range(5))
-def test_pileup_matches_oracle(seed):
+def _dense_case(rng, B=256, W=128, E=4096, reso=50):
+    """Dense multi-tile batch laid out directly (no bucketing): B reads of
+    W full windows, E events with sorted rows spread over every row."""
+    lens = np.full(B, W * reso, dtype=np.int32)
+    ev_read = np.sort(rng.integers(0, B, E)).astype(np.int32)
+    w0 = rng.integers(0, W, E)
+    w1 = np.minimum(w0 + rng.integers(0, W - 1, E), W - 1)
+    ev_lo = (w0 * reso + rng.integers(0, reso, E)).astype(np.int32)
+    ev_hi = (w1 * reso + rng.integers(0, reso, E)).astype(np.int32)
+    return lens, ev_read, ev_lo, ev_hi
+
+
+def _bucketed_case(rng, n_reads, max_len, reso=50):
+    """Variable-length reads with up to 40 events each, read-major."""
+    lens = rng.integers(1, max_len, n_reads).astype(np.int32)
+    ev_read, ev_lo, ev_hi = [], [], []
+    for r in range(n_reads):
+        for _ in range(int(rng.integers(0, 40))):
+            a = int(rng.integers(0, lens[r]))
+            b = int(rng.integers(a, lens[r] + 1))
+            ev_read.append(r)
+            ev_lo.append(a)
+            ev_hi.append(b - 1)
+    ev_read = np.asarray(ev_read, dtype=np.int32)
+    order = np.argsort(ev_read, kind="stable")
+    return (lens, ev_read[order], np.asarray(ev_lo, dtype=np.int32)[order],
+            np.asarray(ev_hi, dtype=np.int32)[order])
+
+
+_PILEUP_LAYOUTS = (
+    # random small reads through make_buckets (several W tiers)
+    [("rand", seed) for seed in range(5)]
+    # dense multi-tile batches: B=256, W=128, with 4096 and 1024 events
+    + [(f"dense{e}", 900 + seed) for e in (4096, 1024) for seed in range(3)]
+    # make_buckets layouts: 16 reads (one sparse tier) and 130 reads of up
+    # to 20 kb (tiers merged upward, uneven per-row slabs)
+    + [(f"buckets{n}", seed) for n in (16, 130) for seed in range(3)]
+    # 300 reads: B lands on a 1.5*2^k ladder size (384)
+    + [("buckets300", 300 + seed) for seed in range(2)])
+
+
+@pytest.mark.parametrize("layout,seed", _PILEUP_LAYOUTS)
+def test_pileup_matches_oracle(layout, seed):
+    """The device pileup (scatter-add diff + row cumsum) equals the
+    scalar oracle's per-read coverage on every layout."""
     rng = np.random.default_rng(seed)
-    params = AlgoParams(est_cov=10, reso=50)
-    lens, ev_read, ev_lo, ev_hi = rand_case(rng)
-    buckets = bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, 50)
+    reso = 50
+    params = AlgoParams(est_cov=10, reso=reso)
+    if layout == "rand":
+        lens, ev_read, ev_lo, ev_hi = rand_case(rng)
+    elif layout.startswith("dense"):
+        lens, ev_read, ev_lo, ev_hi = _dense_case(
+            rng, E=int(layout[len("dense"):]), reso=reso)
+    else:
+        n_reads = int(layout[len("buckets"):])
+        lens, ev_read, ev_lo, ev_hi = _bucketed_case(
+            rng, n_reads, 8000 if n_reads == 16 else 20000, reso)
+
+    if layout.startswith("dense"):
+        # one batch exactly as laid out: rows = reads, E = all events
+        bk = bucketing.Bucket(
+            read_ids=np.arange(len(lens)), B=len(lens), W=128,
+            E=len(ev_read), lens=lens, ev_row=ev_read,
+            ev_w0=ev_lo // reso, ev_w1=ev_hi // reso, n_used=len(lens))
+        buckets = [bk]
+    else:
+        buckets = bucketing.make_buckets(lens, ev_read, ev_lo, ev_hi, reso)
     got = {}
     for bk in buckets:
         cfg = derive_cfg(bk.B, bk.W, bk.E, params)
-        cov, _diff = pileup_diff_scatter(
+        cov, diff = pileup_diff_scatter(
             jnp.asarray(bk.ev_row), jnp.asarray(bk.ev_w0),
             jnp.asarray(bk.ev_w1), cfg)
         cov = np.asarray(cov)
+        np.testing.assert_array_equal(np.cumsum(np.asarray(diff), axis=1),
+                                      cov)
         for r_local, rid in enumerate(bk.read_ids):
-            nw = oracle.n_windows(int(lens[rid]), 50)
+            nw = oracle.n_windows(int(lens[rid]), reso)
             got[rid] = cov[r_local, :nw]
     for r in range(len(lens)):
         m = ev_read == r
-        want = oracle.coverage_one_read(int(lens[r]), 50, ev_lo[m], ev_hi[m])
+        want = oracle.coverage_one_read(int(lens[r]), reso, ev_lo[m],
+                                        ev_hi[m])
         np.testing.assert_array_equal(got[r], want, err_msg=f"read {r}")
 
 
@@ -240,24 +304,3 @@ def test_rows_from_offsets_matches_ev_row(seed):
         cfg = derive_cfg(bk.B, bk.W, bk.E, AlgoParams(est_cov=5))
         got = np.asarray(rows_from_offsets(jnp.asarray(bk.ev_off), cfg))
         np.testing.assert_array_equal(got, bk.ev_row.astype(np.int32))
-
-
-def test_pallas_auto_policy_table():
-    """pallas_auto encodes the r4 on-chip A/B (two interleaved runs with
-    spread bars, BENCHMARKS.md): only LARGE well-filled batches take the
-    MXU kernel; every B<=384 shape measured exactly 1.00 both runs.
-    Pure function — decision table pinned here so an accidental
-    threshold edit is visible."""
-    from raft_tpu.engine_jax import pallas_auto
-    assert pallas_auto(4096, 1024)      # 1.035-1.047x, both runs
-    assert pallas_auto(4096, 512)       # 1.086-1.113x, both runs
-    assert pallas_auto(3072, 256)       # 1.074-1.096x, both runs
-    assert pallas_auto(2048, 512)       # region boundary
-    assert not pallas_auto(384, 1024)   # 1.001-1.004x: r3's 1.43x claim
-    #                                     did not reproduce (r4 A/B)
-    assert not pallas_auto(384, 512)    # 1.001-1.003x
-    assert not pallas_auto(512, 128)    # W<256: 0.1 ms shape, noise only
-    assert not pallas_auto(8, 2048)     # near-empty
-    assert not pallas_auto(1024, 512)   # below the reproduced win region
-    assert not pallas_auto(4096, 500)   # misaligned W
-    assert not pallas_auto(4096, 768)   # W-stripe misaligned (WB=512)

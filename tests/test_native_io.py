@@ -276,8 +276,7 @@ def test_negative_interval_binning_matches_python():
     negative starts) must bin IDENTICALLY in the native group_events
     pass and the python convention (w0 = floor(lo/reso);
     w1 = -1 when hi < 0 else hi/reso — oracle.py:58, engine_jax.py:657,
-    bucketing.py:152). ADVICE r4 item 4 claimed the paths diverge here;
-    this pins them bit-identical either way."""
+    bucketing.py). This pins them bit-identical."""
     from raft_tpu.io import native
     from raft_tpu.io.paf import OverlapTable
 

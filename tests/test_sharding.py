@@ -4,6 +4,7 @@ pipeline must equal the single-device engine (and hence the reference)."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 
 import jax
 
@@ -146,3 +147,36 @@ def test_sharded_ultralong_pairs_tier():
     np.testing.assert_array_equal(r1.rep_e, r8.rep_e)
     np.testing.assert_array_equal(r1.frag_char_start, r8.frag_char_start)
     np.testing.assert_array_equal(r1.frag_char_len, r8.frag_char_len)
+
+
+def _graft_entry():
+    import importlib
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    return importlib.import_module("__graft_entry__")
+
+
+def test_dryrun_multichip_too_few_devices_raises():
+    """The multi-device entry never switches platform behind the caller's
+    back: asking for more devices than the backend has is an error."""
+    with pytest.raises(RuntimeError, match="need 16 devices, have 8"):
+        _graft_entry().dryrun_multichip(16)
+
+
+def test_dryrun_multichip_runs_on_4():
+    _graft_entry().dryrun_multichip(4)
+
+
+def test_stage_sharded_places_each_shard():
+    """Sharded staging puts shard i (a contiguous row range) on mesh
+    device i, straight from the host array."""
+    from raft_tpu.parallel.mesh import stage_sharded
+    mesh = make_mesh(4)
+    x = np.arange(4 * 6, dtype=np.int32)
+    a = stage_sharded(mesh, x)
+    np.testing.assert_array_equal(np.asarray(a), x)
+    shards = sorted(a.addressable_shards, key=lambda s: s.index[0].start)
+    assert [s.device for s in shards] == list(mesh.devices)
+    for i, s in enumerate(shards):
+        np.testing.assert_array_equal(np.asarray(s.data), x[6 * i:6 * i + 6])

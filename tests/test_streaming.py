@@ -151,9 +151,8 @@ def test_index_reads_gz_temp_cleanup(tmp_path):
 
 def test_auto_chunk_at_scale(tmp_path, monkeypatch):
     """chunk_reads=None auto-streams when inputs exceed
-    RAFT_AUTO_CHUNK_BYTES (SCALE_r03.json: 3.06x at 512k reads), with
-    outputs byte-identical to the forced whole-file run; chunk_reads=0
-    opts out."""
+    RAFT_AUTO_CHUNK_BYTES, with outputs byte-identical to the forced
+    whole-file run; chunk_reads=0 opts out."""
     tmp = str(tmp_path)
     reads, paf = datagen.standard_case(seed=901, tmpdir=tmp, n_reads=29)
     monkeypatch.setenv("RAFT_AUTO_CHUNK_BYTES", "1")  # everything is big

@@ -1,79 +1,13 @@
-"""Unit tests for the round-4 instrumentation/warm machinery:
-
-* ``engine_jax._record_shape_families`` / ``warm_shapes_async`` — the
-  persisted shape-family format, LRU merge/capping, and the off-TPU
-  no-op contract;
-* ``RAFT_CHUNK_TRACE`` — the per-chunk JSONL schema that
-  ``tools/bench_chunk.py`` consumes (guards the producer/consumer
-  contract so the decomposition tool cannot silently rot).
+"""Unit tests for the chunk tracer: ``RAFT_CHUNK_TRACE`` — the per-chunk
+JSONL schema that ``tools/bench_chunk.py`` consumes (guards the
+producer/consumer contract so the decomposition tool cannot silently
+rot).
 """
 
 from __future__ import annotations
 
 import json
 import os
-
-import numpy as np
-import pytest
-
-
-def test_record_shape_families_roundtrip(tmp_path, monkeypatch):
-    from raft_tpu import engine_jax as ej
-
-    path = str(tmp_path / "warm.json")
-    monkeypatch.setattr(ej, "_SHAPE_WARM_PATH", path)
-    cfg = ej.StaticCfg(B=8, W=64, E=16, M=4, K=3, F=3, reso=50,
-                       high_cov=10, repeat_length=100, flank=10,
-                       interval_length=100, div=2, overlap_length=5)
-    key_args = (((8,), "int32"), ((9,), "int64"), ((16,), "uint16"))
-    ej._record_shape_families([(cfg, key_args)])
-    data = json.load(open(path))
-    assert len(data) == 1
-    assert data[0]["cfg"]["B"] == 8 and data[0]["cfg"]["W"] == 64
-    assert data[0]["args"] == [[[8], "int32"], [[9], "int64"],
-                               [[16], "uint16"]]
-    # the recorded entry must rebuild the exact StaticCfg
-    assert ej.StaticCfg(**data[0]["cfg"]) == cfg
-
-    # merge: a second record with a NEW family keeps the old one too
-    cfg2 = ej.StaticCfg(**{**data[0]["cfg"], "B": 16})
-    ej._record_shape_families([(cfg2, key_args)])
-    data = json.load(open(path))
-    assert len(data) == 2
-    assert data[0]["cfg"]["B"] == 16  # newest first
-    # re-recording an existing family does not duplicate it
-    ej._record_shape_families([(cfg2, key_args)])
-    assert len(json.load(open(path))) == 2
-
-
-def test_record_shape_families_cap(tmp_path, monkeypatch):
-    from raft_tpu import engine_jax as ej
-
-    path = str(tmp_path / "warm.json")
-    monkeypatch.setattr(ej, "_SHAPE_WARM_PATH", path)
-    base = dict(W=64, E=16, M=4, K=3, F=3, reso=50, high_cov=10,
-                repeat_length=100, flank=10, interval_length=100, div=2,
-                overlap_length=5)
-    for b in range(ej._SHAPE_WARM_MAX + 20):
-        ej._record_shape_families(
-            [(ej.StaticCfg(B=b + 1, **base), (((1,), "int32"),))])
-    data = json.load(open(path))
-    assert len(data) <= ej._SHAPE_WARM_MAX
-    assert data[0]["cfg"]["B"] == ej._SHAPE_WARM_MAX + 20  # newest kept
-
-
-def test_warm_async_noop_off_tpu(tmp_path, monkeypatch):
-    """On the CPU backend (the test environment) the warm must be a
-    no-op regardless of cache contents, and RAFT_SHAPE_WARM=0 must
-    disable it everywhere."""
-    from raft_tpu import engine_jax as ej
-
-    path = str(tmp_path / "warm.json")
-    monkeypatch.setattr(ej, "_SHAPE_WARM_PATH", path)
-    json.dump([{"cfg": {}, "args": []}], open(path, "w"))
-    assert ej.warm_shapes_async() is None  # cpu backend
-    monkeypatch.setenv("RAFT_SHAPE_WARM", "0")
-    assert ej.warm_shapes_async() is None
 
 
 def test_chunk_trace_schema(tmp_path, monkeypatch):
